@@ -1,6 +1,6 @@
 // Native associated-Legendre P_l^m / Q_l^m (x > 1) table builder.
 //
-// Same algorithm as helfem_tpu/ops/legendreq.py (the TPU rebuild of the
+// Same algorithm as helfem_tpu/ops/legendreq.py (the JAX rebuild of the
 // reference's Fortran legendre library, src/legendre/*.f90): upward l
 // recursion for P_l^0, exact product identity / Miller downward recursion
 // for Q_l^0 (switched per point on theta = arccosh xi), and the

@@ -1,4 +1,4 @@
-"""helfem_tpu: TPU-native finite-element electronic-structure suite.
+"""helfem_tpu: finite-element electronic-structure suite in JAX.
 
 A from-scratch JAX/XLA rebuild of the capabilities of HelFEM (Helsinki
 Finite Element Suite): fully numerical Hartree-Fock and DFT on atoms and
@@ -13,7 +13,7 @@ Design (vs the C++/Armadillo/OpenMP reference):
   * prefix sums (cumsum over the element axis) for the cross-element
     factorized two-electron terms instead of O(Nel^2) loops,
   * batched whitened symmetric eigensolves over symmetry blocks,
-  * float64 on device (XLA-emulated on TPU), with setup tables built on host
+  * IEEE float64 on device (GPU or CPU), with setup tables built on host
     in extended precision (numpy longdouble).
 """
 

@@ -1032,7 +1032,7 @@ def solve_sadatom(
         # short host warmup on the SHARED DIIS implementation (scf/diis.py),
         # then fully on-device fused chunks (make_sad_fused_chunk): only
         # per-iteration (E, err) scalars reach the host, removing the
-        # device round-trips that dominated gensap wall clock on TPU
+        # per-iteration device round trips
         from helfem_tpu.scf.diis import DIIS
 
         E_, C_ = E0.copy(), C0

@@ -1,6 +1,6 @@
 """Finite-element basis layer (L2).
 
-TPU-native redesign of FiniteElementBasis
+Device-batched redesign of FiniteElementBasis
 (libhelfem/src/FiniteElementBasis.cpp, include/FiniteElementBasis.h):
 
 * The reference drops boundary basis functions per boundary conditions by
@@ -8,7 +8,7 @@ TPU-native redesign of FiniteElementBasis
   the full fixed [nprim] function slot layout; dropped functions have their
   basis-value columns ZEROED and their global index mapped to a trash slot
   (nbf). All per-element tensors have static shapes [nelem, nq, nprim] and the
-  global assembly is one scatter-add -- XLA/TPU friendly and race-free by
+  global assembly is one scatter-add -- XLA friendly and race-free by
   construction (replacing the per-element-buffer + serial reduction of
   FiniteElementBasis::matrix_element, FiniteElementBasis.cpp:327-349).
 

@@ -160,7 +160,7 @@ def _ex_pbe(ra, rb, saa, sab, sbb, ta=0.0, tb=0.0, *,
 
     def exs(r2, s2x4):
         # E_x[rho] for the closed-shell density 2*rho_s with sigma 4*sigma_ss.
-        # TPU f64 is emulated with the f32 exponent range (~1e+-38), so the
+        # Range-safe form (every intermediate within ~1e+-38): the
         # reduced gradient is built from n^(-4/3) FACTORS (value <= 1e16,
         # first derivative <= 1e28 for n >= 1e-12) instead of dividing by
         # 4 kf^2 n^2 (~1e-22 in the tail), whose vjp squares the denominator
@@ -208,7 +208,7 @@ def _ec_pbe(ra, rb, saa, sab, sbb, ta=0.0, tb=0.0, *,
     phi = 0.5 * ((1.0 + zeta) ** (2.0 / 3.0) + (1.0 - zeta) ** (2.0 / 3.0))
     sigma = saa + 2.0 * sab + sbb
     # t2 = sigma / (4 phi^2 ks^2 rho^2) with ks^2 = 4 kf / pi, built from
-    # range-safe factors for the TPU f32-exponent f64 emulation (see _ex_pbe):
+    # range-safe factors (within ~1e+-38, see _ex_pbe):
     # sigma * rho^(-4/3) stays ~O(1) in exponential tails, rho^(-1) <= 1e12.
     kf1 = (3.0 * jnp.pi**2) ** (1.0 / 3.0)
     inv43 = rho ** (-4.0 / 3.0)
@@ -217,7 +217,7 @@ def _ec_pbe(ra, rb, saa, sab, sbb, ta=0.0, tb=0.0, *,
     A = beta / gamma / (expo - 1.0 + _TINY)
     # (1 + u)/(1 + u + u^2) rewritten as 1/(1 + u^2/(1+u)): the direct form's
     # quotient vjp squares a denominator that reaches ~1e28 near the density
-    # threshold and overflows the TPU f32-exponent f64 emulation (see _ex_pbe)
+    # threshold, outside the ~1e+-38 range kept here (see _ex_pbe)
     u = A * t2
     ratio = 1.0 / (1.0 + (u / (1.0 + u)) * u)
     H = gamma * phi**3 * jnp.log(1.0 + beta / gamma * t2 * ratio)
@@ -235,7 +235,7 @@ def _ex_b88(ra, rb, saa, sab, sbb, ta=0.0, tb=0.0, *, beta=0.0042):
     def exs(r, s):
         r43 = r ** (4.0 / 3.0)
         # x = |grad rho| / rho^(4/3) via a multiplicative inverse power
-        # (range-safe for the TPU f32-exponent f64 emulation, see _ex_pbe);
+        # (range-safe, see _ex_pbe);
         # the 1e-30 sigma floor keeps sqrt's derivative finite at sigma = 0
         x = jnp.sqrt(jnp.maximum(s, 0.0) + 1e-30) * r ** (-4.0 / 3.0)
         corr = -beta * r43 * x * x / (1.0 + 6.0 * beta * x * jnp.arcsinh(x))
@@ -261,8 +261,8 @@ def _ec_lyp(ra, rb, saa, sab, sbb, ta=0.0, tb=0.0):
     t1 = -a * 4.0 / den * (ra / rho) * rb
     # The omega * (ra rb t2 + t3) term is algebraically refactored so the
     # rho^(-11/3) weight multiplies each piece through O(1) spin ratios and
-    # rho^(-4/3)/rho^(-1/3) factors -- rho^(-11/3) itself overflows the TPU
-    # f32-exponent f64 emulation in exponential tails (see _ex_pbe).
+    # rho^(-4/3)/rho^(-1/3) factors -- rho^(-11/3) itself leaves the
+    # ~1e+-38 range kept here in exponential tails (see _ex_pbe).
     xa, xb = ra / rho, rb / rho
     inv43 = rho ** (-4.0 / 3.0)
 
@@ -307,8 +307,8 @@ def _tpss_Fx(p, z, alpha):
         + e * mu * p**3
     )
     # divide by (1 + sqrt(e) p) twice: squaring the denominator first would
-    # overflow the TPU f32-exponent f64 emulation in the quotient's vjp for
-    # tail-sized p (see _ex_pbe)
+    # leave the ~1e+-38 range in the quotient's vjp for tail-sized p (see
+    # _ex_pbe)
     den = 1.0 + jnp.sqrt(e) * p
     x = (num / den) / den
     return 1.0 + kappa - kappa / (1.0 + x / kappa)
@@ -318,8 +318,7 @@ def _ex_tpss(ra, rb, saa, sab, sbb, ta, tb):
     def exs(r2, s4, t2):
         # closed-shell quantities for the 2*rho_s density; reduced variables
         # built from n^(-k/3) factors (k <= 5) so primal values and first
-        # derivatives stay inside the TPU f32-exponent f64-emulation range
-        # for n >= 1e-12 (see _ex_pbe)
+        # derivatives stay inside ~1e+-38 for n >= 1e-12 (see _ex_pbe)
         kf1 = (3.0 * jnp.pi**2) ** (1.0 / 3.0)
         exu = -3.0 * kf1 * r2 ** (1.0 / 3.0) / (4.0 * jnp.pi)
         inv43 = r2 ** (-4.0 / 3.0)
@@ -329,7 +328,7 @@ def _ex_tpss(ra, rb, saa, sab, sbb, ta, tb):
         tau = jnp.maximum(t2, tw + _TINY)
         # z = tw/tau through tunif-scaled ratios: both scale like n^(5/3) in
         # the tail, so the bare quotient's vjp squares a ~1e-20 denominator
-        # and overflows the TPU f32-exponent f64 emulation (see _ex_pbe)
+        # and leaves the ~1e+-38 range (see _ex_pbe)
         tws = tw * inv53
         taus = tau * inv53
         z = jnp.clip(tws / jnp.maximum(taus, jnp.maximum(tws, 1e-15)), 0.0, 1.0)
@@ -346,7 +345,7 @@ def _ec_tpss(ra, rb, saa, sab, sbb, ta, tb):
     tau = ta + tb
     sigma = saa + 2.0 * sab + sbb
     tw = sigma / (8.0 * rho + _TINY)
-    # z = tw/tau via tunif-scaled ratios (TPU range safety, see _ex_tpss)
+    # z = tw/tau via tunif-scaled ratios (range safety, see _ex_tpss)
     inv53 = rho ** (-5.0 / 3.0)
     tws = tw * inv53
     taus = jnp.maximum(tau, tw + _TINY) * inv53
@@ -354,15 +353,15 @@ def _ec_tpss(ra, rb, saa, sab, sbb, ta, tb):
     zeta = jnp.clip((ra - rb) / rho, -1.0 + 1e-14, 1.0 - 1e-14)
     # C(zeta, xi)
     C0 = 0.53 + 0.87 * zeta**2 + 0.50 * zeta**4 + 2.26 * zeta**6
-    # |grad zeta|^2 from O(1) spin ratios and one rho^-2 factor (range-safe
-    # for the TPU f32-exponent f64 emulation; rho^4 underflows in the tail)
+    # |grad zeta|^2 from O(1) spin ratios and one rho^-2 factor (range-safe;
+    # rho^4 underflows in the tail)
     xa, xb = ra / rho, rb / rho
     gz2 = 4.0 * (xb * xb * saa - 2.0 * xa * xb * sab + xa * xa * sbb) * rho ** (-2.0)
     kf = (3.0 * jnp.pi**2 * rho) ** (1.0 / 3.0)
     xi2 = gz2 / (4.0 * kf**2 + _TINY)
     fz = 0.5 * ((1.0 + zeta) ** (-4.0 / 3.0) + (1.0 - zeta) ** (-4.0 / 3.0))
-    # (1 + xi2 fz)^4 can exceed the TPU f32-exponent range when one spin
-    # channel vanishes; the log1p form underflows gracefully to C = 0
+    # (1 + xi2 fz)^4 can exceed ~1e38 when one spin channel vanishes; the
+    # log1p form underflows gracefully to C = 0
     C = C0 * jnp.exp(-4.0 * jnp.log1p(xi2 * fz))
     # epsilon_c^PBE of the full density (per particle)
     eps = _ec_pbe(ra, rb, saa, sab, sbb) / rho
@@ -391,7 +390,7 @@ def _scan_falpha(alpha, c1, c2, d):
     a = 1, -d exp(c2/(1-a)) above. Both branches get range-clamped safe
     inputs so the inactive branch's vjp stays finite (the active branch's
     exponential underflows to an exact 0 before the 1/(1-a)^2 quotient
-    factor can overflow the TPU f32-exponent f64 emulation)."""
+    factor can leave the ~1e+-38 range)."""
     a_lo = jnp.clip(alpha, 0.0, 1.0 - 1e-9)
     lo = jnp.exp(-c1 * a_lo / (1.0 - a_lo))
     a_hi = jnp.maximum(alpha, 1.0 + 1e-9)
@@ -415,7 +414,7 @@ def _ex_scan(ra, rb, saa, sab, sbb, ta, tb, *, k1=0.065, k0=0.174):
 
     def exs(r2, s4, t2):
         # reduced variables from n^(-k/3) FACTORS; see _ex_pbe/_ex_tpss for
-        # the TPU f32-exponent f64-emulation range analysis
+        # the range analysis
         kf1 = (3.0 * jnp.pi**2) ** (1.0 / 3.0)
         exu = -3.0 * kf1 * r2 ** (1.0 / 3.0) / (4.0 * jnp.pi)
         inv43 = r2 ** (-4.0 / 3.0)
@@ -429,8 +428,8 @@ def _ex_scan(ra, rb, saa, sab, sbb, ta, tb, *, k1=0.065, k0=0.174):
             b1 * p + b2 * oma * jnp.exp(-b3 * oma * oma)
         ) ** 2
         # h1x saturates at 1 + k1 for x >> k1; cap x so the quotient's vjp
-        # (which squares 1 + x/k1) cannot overflow the TPU f32-exponent f64
-        # emulation in far tails where x reaches ~1e19. The cap changes h1x
+        # (which squares 1 + x/k1) stays within ~1e+-38 in far tails where
+        # x reaches ~1e19. The cap changes h1x
         # by < k1^2/x ~ 4e-11 and zeroes an already ~1e-20 gradient.
         x = jnp.minimum(x, 1e8)
         h1x = 1.0 + k1 - k1 / (1.0 + x / k1)
@@ -535,8 +534,8 @@ def _rscan_alpha(num53, den53, inv53):
     (tau - tw)*rho^(-5/3), the scaled tau_unif prefactor, and rho^(-5/3)
     itself (tau_r must be rescaled by it to stay in energy units). a is
     capped at 1e6 -- f(alpha) is constant there to 1e-6 -- so the
-    rational's vjp (a^4-scale numerator) cannot overflow the TPU
-    f32-exponent f64 emulation in far tails where a reaches ~1e9."""
+    rational's vjp (a^4-scale numerator) stays within ~1e+-38 in far tails
+    where a reaches ~1e9."""
     a = num53 / (den53 + _RSCAN_TAU_R * inv53)
     a = jnp.minimum(a, 1e6)
     return a * a * a / (a * a + _RSCAN_ALPHA_R)
@@ -638,8 +637,7 @@ def _br89_solve_x(y):
     log form, so the derivative flows through the converged Newton step
     (the implicit-function derivative)."""
     neg = y < 0.0
-    # 1e-30 floor: the smallest magnitude representable under the TPU
-    # f32-exponent f64 emulation (1e-300 would flush to zero there)
+    # 1e-30 floor: the bottom of the ~1e+-38 range kept here (see _ex_pbe)
     ys = jnp.where(jnp.abs(y) > 1e-30, y, jnp.where(neg, -1e-30, 1e-30))
 
     def g(x):
@@ -678,7 +676,7 @@ def _ex_br89(ra, rb, saa, sab, sbb, ta, tb, la, lb, *, gamma=0.8):
         D = 2.0 * t - 0.25 * s / (r + _TINY)
         Q = (l - 2.0 * gamma * D) / 6.0
         # floors at 1e-15: a divisor below ~1e-19 overflows when the vjp
-        # squares it under the TPU f32-exponent f64 emulation (see _ex_pbe);
+        # squares it past the ~1e+-38 range kept here (see _ex_pbe);
         # |Q| ~ 1e-15 only in far tails where the hole model saturates anyway
         Qs = jnp.where(jnp.abs(Q) > 1e-15, Q, jnp.where(Q < 0.0, -1e-15, 1e-15))
         y = (2.0 / 3.0) * jnp.pi ** (2.0 / 3.0) * r ** (5.0 / 3.0) / Qs
@@ -750,7 +748,7 @@ def get_functional(name: str) -> Functional:
 
 
 def with_params(f: Functional, **overrides) -> Functional:
-    """Functional with named parameter overrides (the TPU-native equivalent
+    """Functional with named parameter overrides (the JAX equivalent
     of the reference's libxc ext_params files, src/atomic/main.cpp:107-108).
     Keys are validated against the functional's keyword parameters."""
     if not overrides:
@@ -944,7 +942,7 @@ def xc_eval(funcs, ra, rb, saa, sab, sbb, thr: float = 1e-12, ta=None, tb=None,
     # per-spin density floor at thr (the analogue of libxc's
     # xc_func_set_dens_threshold, applied per spin channel): at a live point
     # one spin can still be arbitrarily small, and n^(-4/3)-type reduced
-    # variables overflow the TPU f32-exponent f64 emulation below ~1e-12;
+    # variables leave the ~1e+-38 range kept here below ~1e-12;
     # the spurious contribution of a floored channel is O(thr^(4/3)) per
     # point -- far below quadrature accuracy
     args = [

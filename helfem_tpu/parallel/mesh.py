@@ -1,4 +1,4 @@
-"""Multi-chip sharding layer (the TPU-native replacement for the reference's
+"""Multi-device sharding layer (the JAX replacement for the reference's
 OpenMP parallel regions, SURVEY.md section 2.7).
 
 The reference's parallelism sites map onto a 1D device mesh as follows:
@@ -12,8 +12,9 @@ The reference's parallelism sites map onto a 1D device mesh as follows:
 | grid-energy reductions (omp reduction)     | jax.lax.psum over 'ch'             |
 
 One SCF iteration = shard_map(fock_shard) [L-sharded J/K, psum] followed by
-shard_map(eig_shard) [block-sharded batched eigh, all_gather]. Collectives
-ride ICI; no DCN is needed at these problem sizes.
+shard_map(eig_shard) [block-sharded batched eigh, all_gather]. The 1D 'ch'
+mesh follows the algorithm, not a device topology, so it suits cards joined
+all to all (NVLink); XLA hands the collectives to NCCL on the GPU.
 """
 
 from functools import partial
@@ -21,7 +22,6 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from helfem_tpu.models.atomic import (AtomicOperators, channel_diag, coulomb,
@@ -321,7 +321,7 @@ def pad_grid_for_mesh(g, nrad: int, n: int):
 
 def sharded_xc_fock(mesh: Mesh, g, funcs, nrad: int, thr: float = 1e-12):
     """XC Fock build sharded over the radial-element axis of the quadrature
-    grid: the TPU-native replacement for the reference DFTGrid's
+    grid: the device replacement for the reference DFTGrid's
     OpenMP-over-elements loop with even/odd write sweeps
     (src/atomic/dftgrid.cpp:817-870) -- each device integrates its element
     shard and the partial Fxc / Exc / Nel are psum'ed (overlapping FEM rows

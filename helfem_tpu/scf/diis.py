@@ -40,7 +40,7 @@ def device_diis_step(histF, histE, count, F, errv):
     valid = jnp.arange(H) < count
     B = histE @ histE.T
     # invalid-slot padding scaled relative to B; solve with the refined
-    # eigh (the raw TPU kernel's error is relative to ||B||)
+    # eigh (a raw eigh's error is relative to ||B||)
     bscale = jnp.max(jnp.where(valid, jnp.diagonal(B), 0.0)) + 1e-300
     B = jnp.where(valid[:, None] & valid[None, :], B, 1e4 * bscale * jnp.eye(H))
     w, V = eigh_refined(B)

@@ -1,6 +1,6 @@
 """Linear-algebra helpers (L7 support).
 
-Symmetry-blocked generalized eigensolves, redesigned for TPU batching:
+Symmetry-blocked generalized eigensolves, batched for the device:
 because S = I_ang (x) S_rad, the half-inverse is per-radial-block and all
 (l,m) symmetry blocks have identical radial dimension, so the per-block
 whitened eigensolves batch into ONE vmapped eigh over the angular axis
@@ -22,7 +22,7 @@ def _refine_passes(A, E, V, npass: int, tau: float):
     """The shared first-order refinement sweep of eigh_refined/eigh_warm:
     given an approximate eigensystem (E, V) of symmetric A, run `npass`
     perturbative correction + Newton re-orthonormalization passes (all
-    matmuls -- MXU work, no QR). Returns (E, V, off) where off is the
+    matmuls, no QR). Returns (E, V, off) where off is the
     largest |off-diagonal| of V^T A V from the LAST pass (a residual
     certificate for the warm path's fallback decision)."""
     n = A.shape[-1]
@@ -53,50 +53,22 @@ def _sort_eigs(E, V):
             jnp.take_along_axis(V, order[..., None, :], axis=-1))
 
 
-def eigh_refined(A: jnp.ndarray, npass: int = 4, tau: float = 1e-9,
-                 mode: str = "auto"):
-    """Symmetric eigendecomposition with f64 accuracy on TPU.
-
-    The TPU eigh kernel stops at ~f32 residual tolerance (observed ~1e-7
-    relative eigenvector residuals, i.e. absolute eigenvalue errors of
-    ~1e-9 * ||A||, which is fatal for FEM Hamiltonians with ||A|| ~ 1e5+).
-    TPU f64 *matmuls* are accurate, so we run `npass` first-order
-    perturbative refinement sweeps entirely on device:
+def eigh_refined(A: jnp.ndarray, npass: int = 4, tau: float = 1e-9):
+    """Symmetric eigendecomposition: f64 eigh followed by `npass`
+    first-order perturbative refinement sweeps, all matmuls:
 
         M = V^T A V;  E = diag(M);  C_ij = M_ij / (E_j - E_i)  (i != j)
         V <- V (I + C);  V <- V (3I - V^T V)/2   (Newton re-orthonormalization)
 
-    Near-degenerate pairs (|dE| <= tau * scale) are masked out of C: rotations
-    inside a degenerate cluster are physically irrelevant (any orthonormal
-    basis of the cluster is equally valid for densities/occupations). Each
-    pass contracts the residual quadratically; 4 passes take the observed
-    1e-4 errors to ~1e-13. Batches over leading axes (works under vmap).
-
-    mode (or env HELFEM_EIGH): which kernel seeds the refinement.
-      - "f64": emulated/native f64 eigh seed -- the DEFAULT on every
-        backend (reference foundation: the f64 generalized eigensolve of
-        scf::eig_gsym, src/general/scf_helpers.cpp:131-139).
-      - "mixed": run the eigh itself in NATIVE f32 and lift to f64 purely
-        by the refinement passes. OPT-IN ONLY (HELFEM_EIGH=mixed): round-4
-        shipped this as the accelerator default and it broke on-chip SCF
-        convergence (measured on the real chip: Ar HF stalls +0.112 Eh
-        with mixed; converges in 10 iterations to 7e-11 with f64). The
-        f32 seed plus clipped refinement passes is not accurate enough
-        for the DIIS loop near degenerate blocks.
-      - "auto": resolves to "f64" unless HELFEM_EIGH overrides.
-    """
-    import os
-
-    if mode == "auto":
-        mode = os.environ.get("HELFEM_EIGH", "f64")
-        # HELFEM_EIGH_NPASS overrides the refinement-pass count (tuning
-        # knob for on-chip experiments; the default stays 4)
-        npass = int(os.environ.get("HELFEM_EIGH_NPASS", npass))
-    if mode == "mixed":
-        E32, V32 = jnp.linalg.eigh(A.astype(jnp.float32))
-        E, V = E32.astype(A.dtype), V32.astype(A.dtype)
-    else:
-        E, V = jnp.linalg.eigh(A)
+    The sweeps exist for eigh kernels that stop short of a backward-stable
+    f64 residual: each pass contracts the residual quadratically (4 passes
+    take 1e-4 errors to ~1e-13). Near-degenerate pairs (|dE| <= tau *
+    scale) are masked out of C: rotations inside a degenerate cluster are
+    physically irrelevant (any orthonormal basis of the cluster is equally
+    valid for densities/occupations). Batches over leading axes (works
+    under vmap). Reference: the f64 generalized eigensolve of scf::eig_gsym,
+    src/general/scf_helpers.cpp:131-139."""
+    E, V = jnp.linalg.eigh(A)
     E, V, _ = _refine_passes(A, E, V, npass, tau)
     # restore ascending order (refinement may perturb near-degenerate order)
     return _sort_eigs(E, V)
@@ -105,36 +77,26 @@ def eigh_refined(A: jnp.ndarray, npass: int = 4, tau: float = 1e-9,
 def eigh_warm(A: jnp.ndarray, V0: jnp.ndarray, npass: int = 3,
               tau: float = 1e-9, gate: float = 1e-10):
     """Warm-started symmetric eigendecomposition: refine the PREVIOUS
-    iteration's eigenvectors V0 instead of running the (emulated-f64,
-    QR-based) eigh seed.
+    iteration's eigenvectors V0 instead of running a fresh eigh.
 
     Inside an SCF the Fock matrix changes by O(DIIS error) between
     iterations, so V0^T A V0 is nearly diagonal and a few matmul-only
-    refinement sweeps (MXU work; _refine_passes) recover the new
-    eigensystem -- the eigh seed, which dominated the fused-chunk
-    iteration wall on chip, is skipped entirely. Correctness is gated by
-    an EXACT residual certificate: npass+1 sweeps run, and the largest
-    |off-diagonal| of V^T A V measured by the final sweep (i.e. the true
-    residual after npass sweeps, in the same absolute units as the DIIS
-    error the SCF gates on) must beat `gate`, else the result is REPLACED
-    by a full eigh_refined(A) (one lax.cond; both branches compiled, the
-    expensive one executed only when the certificate fails -- e.g. the
-    first iteration after a unit-matrix V0, or a large DIIS extrapolation
-    jump). Callers should set gate well below their convergence threshold
-    (the SCF drivers use min(0.1 * convthr, 1e-9)).
+    refinement sweeps (_refine_passes) recover the new eigensystem.
+    Correctness is gated by an EXACT residual certificate: npass+1 sweeps
+    run, and the largest |off-diagonal| of V^T A V measured by the final
+    sweep (i.e. the true residual after npass sweeps, in the same absolute
+    units as the DIIS error the SCF gates on) must beat `gate`, else the
+    result is REPLACED by a full eigh_refined(A) (one lax.cond; both
+    branches compiled, the expensive one executed only when the
+    certificate fails -- e.g. the first iteration after a unit-matrix V0,
+    or a large DIIS extrapolation jump). Callers should set gate well
+    below their convergence threshold (the SCF drivers use
+    min(0.1 * convthr, 1e-9)).
 
     Returns (E, V, used_warm) with E/V sorted ascending; batches over
     leading axes like eigh_refined. V0 must be orthonormal (any orthonormal
     matrix is safe -- at worst the certificate fails and the cold path
     runs)."""
-    return eigh_warm_with(A, V0, gate, lambda M: eigh_refined(M, tau=tau),
-                          npass=npass, tau=tau)
-
-
-def eigh_warm_with(A, V0, gate, cold_fn, npass: int = 3, tau: float = 1e-9):
-    """eigh_warm with a caller-supplied cold fallback (e.g. the diatomic
-    big-basis path substitutes its workspace-chunked eigh so the fallback
-    cannot ResourceExhaust). See eigh_warm for the contract."""
     E0 = jnp.diagonal(jnp.swapaxes(V0, -1, -2) @ A @ V0, axis1=-2, axis2=-1)
     E, V, off = _refine_passes(A, E0, V0, npass + 1, tau)
     good = off < gate
@@ -143,7 +105,7 @@ def eigh_warm_with(A, V0, gate, cold_fn, npass: int = 3, tau: float = 1e-9):
         return _sort_eigs(E, V)
 
     def cold(_):
-        return cold_fn(A)
+        return eigh_refined(A, tau=tau)
 
     Es, Vs = jax.lax.cond(good, warm, cold, None)
     return Es, Vs, good
@@ -348,9 +310,9 @@ def eig_iter_gsym(F: jnp.ndarray, Sinvh: jnp.ndarray, neig: int,
                   maxit: int = 100, tol: float = 1e-9, seed: int = 0):
     """Iterative generalized eigensolver for the LOWEST neig eigenpairs
     (reference: scf::eig_iter's ARPACK/newarp Lanczos,
-    src/general/scf_helpers.cpp:397-421). TPU-native design: LOBPCG -- a
-    blocked, matmul-only Krylov method that maps onto the MXU (ARPACK's
-    single-vector Lanczos is sequential and host-bound). The spectrum is
+    src/general/scf_helpers.cpp:397-421). Device design: LOBPCG -- a
+    blocked, matmul-only Krylov method (ARPACK's single-vector Lanczos is
+    sequential and host-bound). The spectrum is
     flipped (LOBPCG computes the top end) by negating the whitened
     operator.
 

@@ -1,6 +1,6 @@
 """ctypes bindings for the native (C++) host kernels in csrc/.
 
-The TPU compute path is JAX/XLA; the host-side runtime kernels (setup-time
+The device compute path is JAX/XLA; the host-side runtime kernels (setup-time
 integral builders) have native implementations with a numpy fallback, in the
 spirit of the reference's C++ core. The library is built on demand with
 `make -C csrc`.

@@ -1,5 +1,5 @@
 """TEI quadrature-convergence scan (reference: src/diatomic/qtest.cpp:31 --
-stale and unbuilt upstream; this is the working TPU-rebuild equivalent).
+stale and unbuilt upstream; this is the working JAX-rebuild equivalent).
 
 Doubles the per-element quadrature order nquad and reports the max-abs
 change of the one-electron matrices (S, T, Vnuc) and of the in-element

@@ -74,8 +74,8 @@ def test_n2_hf_lmax12_pinned():
     pinned to this repo's own converged CPU f64 value at nelem=5, nnodes=8,
     Rmax=25 (measured 2026-08-17: E = -108.9931061475, 9 iterations;
     ~33 min CPU with the dense exchange, ~5 min since the occupied-orbital
-    factorized K). Gated behind HELFEM_SLOW=1 because of the cost; the TPU
-    bench covers the same config class as n2_hf_lmax12."""
+    factorized K). Gated behind HELFEM_SLOW=1 because of the cost; the GPU
+    smoke run (chip_smoke.py n2_hf_lmax12) covers the same config class."""
     import os
 
     if not os.environ.get("HELFEM_SLOW"):
@@ -283,8 +283,8 @@ def test_exchange_dia_symmetry_high_L():
 
 
 def test_eig_blocks_host_matches_device():
-    """eig_blocks_dia_host (LAPACK, used for big-basis TPU runs where the
-    on-device batched eigh exhausts HBM) reproduces eig_blocks_dia."""
+    """eig_blocks_dia_host (the host LAPACK reference) reproduces the
+    device eigensolve eig_blocks_dia."""
     from helfem_tpu.scf.diatomic_scf import eig_blocks_dia_host
 
     b = DiatomicBasis(Z1=2, Z2=1, Rbond=1.5, lmax=(3, 3), rmax=15.0,

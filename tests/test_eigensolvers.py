@@ -18,7 +18,7 @@ def _gsym_problem(n=120, seed=1):
 
 
 def test_eig_iter_gsym_lowest():
-    """LOBPCG (the TPU-native replacement for eig_iter's ARPACK Lanczos)
+    """LOBPCG (the device replacement for eig_iter's ARPACK Lanczos)
     finds the lowest eigenpairs of a generalized problem."""
     import scipy.linalg as sla
 

@@ -56,7 +56,7 @@ def test_finite_nucleus_subgrid_stability():
     """Hydrogen with an (exaggerated) uniformly-charged-ball nucleus: the
     spherical model's potential has a second-derivative kink at R0, so an
     element boundary there (the sub-grid) makes energies stable under nelem
-    changes -- the VERDICT 'done' criterion."""
+    changes."""
     e4, e6, e8 = _e0_finite(4, 3), _e0_finite(6, 3), _e0_finite(8, 3)
     assert abs(e6 - e8) < 1e-8
     # coarse-grid error improves over the plain grid

@@ -35,7 +35,7 @@ def test_sr_hybrid_omega_limits():
     """sr-pbe0 (alpha=0, beta=0.25, semilocal 0.75 PBE_x + PBE_c):
     omega -> 0 reproduces the global PBE0 hybrid exactly (0.75 PBE_x +
     0.25 K_full + PBE_c); omega -> inf drops the exact exchange, leaving
-    the pure semilocal part (VERDICT done-criterion)."""
+    the pure semilocal part."""
     E_pbe0 = _run("pbe0").E
     # omega = 0 exactly: kshort folds into kfrac (no tables built)
     E_w0 = _run("sr-pbe0[omega=0]").E

@@ -226,8 +226,7 @@ def test_restricted_search_cr_explores_d5():
 
 
 def test_unrestricted_search_cr_ground_state():
-    """Spin polarization picks out the physical Cr 3d5 4s1 (M=7) state
-    (VERDICT round-1 done-criterion)."""
+    """Spin polarization picks out the physical Cr 3d5 4s1 (M=7) state."""
     from helfem_tpu.models.sadatom import SadAtomBasis, search_sadatom_unrestricted
 
     basis = SadAtomBasis(Z=24, lmax=2, rmax=40.0, nelem=6, nnodes=10)
